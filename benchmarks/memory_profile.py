@@ -6,7 +6,7 @@ prints heap deltas around a single codec run per binary
 
 * host heap deltas via ``tracemalloc`` around each backend run;
 * device memory via ``jax.profiler``-backed per-device stats
-  (`lzw_tpu.utils.profiling.device_memory_report`).
+  (`lzw_jax.utils.profiling.device_memory_report`).
 
 Asserts nothing, like the reference — human-inspected evidence that the
 decoder allocates almost nothing beyond its tables and that device buffers
@@ -19,7 +19,7 @@ import tracemalloc
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from lzw_tpu.spec import Endianness, LzwSpec
+from lzw_jax.spec import Endianness, LzwSpec
 
 ASSETS = pathlib.Path(__file__).resolve().parent.parent / "test-assets"
 
@@ -38,7 +38,7 @@ def main():
     data = (ASSETS / "lorem_ipsum.txt").read_bytes()
     spec = LzwSpec.gif(7)
 
-    from lzw_tpu.ops import reference as oracle
+    from lzw_jax.ops import reference as oracle
 
     enc = oracle.encode_bytes(data, spec)
     host_profile("oracle encode lorem_ipsum",
@@ -47,7 +47,7 @@ def main():
                  lambda: oracle.decode_bytes(enc, spec))
 
     try:
-        from lzw_tpu.native.runtime import get_runtime
+        from lzw_jax.native.runtime import get_runtime
 
         rt = get_runtime()
         host_profile("native encode lorem_ipsum",
@@ -57,8 +57,8 @@ def main():
     except Exception as e:
         print(f"native runtime unavailable: {e}")
 
-    from lzw_tpu.api import GifCodec
-    from lzw_tpu.utils.profiling import device_memory_report
+    from lzw_jax.api import GifCodec
+    from lzw_jax.utils.profiling import device_memory_report
 
     codec = GifCodec(7)
     codec.encode(data)  # compile outside the measured run

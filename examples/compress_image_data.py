@@ -12,10 +12,10 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from lzw_tpu import GifCodec
-from lzw_tpu.parallel import BlockParallelCodec
-from lzw_tpu.spec import LzwSpec
-from lzw_tpu.utils.corpus import load_tokyo_pixels
+from lzw_jax import GifCodec
+from lzw_jax.parallel import BlockParallelCodec
+from lzw_jax.spec import LzwSpec
+from lzw_jax.utils.corpus import load_tokyo_pixels
 
 ASSETS = pathlib.Path(__file__).resolve().parent.parent / "test-assets"
 

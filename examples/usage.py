@@ -10,7 +10,7 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from lzw_tpu import GifCodec
+from lzw_jax import GifCodec
 
 ASSETS = pathlib.Path(__file__).resolve().parent.parent / "test-assets"
 

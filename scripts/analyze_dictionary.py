@@ -2,7 +2,7 @@
 
 The analog of the reference's instrumented trie (`exploration/src/tree.rs`),
 which histogrammed children-per-node to justify its 3-state Node enum.  The
-TPU design cares about different shape questions: miss rate (how many scan
+block design cares about different shape questions: miss rate (how many scan
 rows the compacted table would hold), child counts (how selective a
 parent-key match is), and phrase lengths (decode pass-2 round counts).
 """
@@ -13,9 +13,9 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.spec import Endianness, LzwSpec
-from lzw_tpu.utils.corpus import load_corpus
+from lzw_jax.ops import reference as oracle
+from lzw_jax.spec import Endianness, LzwSpec
+from lzw_jax.utils.corpus import load_corpus
 
 ASSETS = pathlib.Path(__file__).resolve().parent.parent / "test-assets"
 

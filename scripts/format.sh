@@ -6,9 +6,9 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 
 if command -v ruff >/dev/null 2>&1; then
-    exec ruff format lzw_tpu tests benchmarks scripts examples
+    exec ruff format lzw_jax tests benchmarks scripts examples
 elif python -c 'import black' >/dev/null 2>&1; then
-    exec python -m black lzw_tpu tests benchmarks scripts examples
+    exec python -m black lzw_jax tests benchmarks scripts examples
 else
-    exec python scripts/stylecheck.py lzw_tpu tests benchmarks scripts examples
+    exec python scripts/stylecheck.py lzw_jax tests benchmarks scripts examples
 fi

@@ -5,8 +5,8 @@ import io
 import numpy as np
 import pytest
 
-from lzw_tpu.api import FixedCodec, GifCodec, LzwCodec, TiffCodec, VariableCodec
-from lzw_tpu.spec import (
+from lzw_jax.api import FixedCodec, GifCodec, LzwCodec, TiffCodec, VariableCodec
+from lzw_jax.spec import (
     CodeSizeError,
     CodeSizeStrategy,
     Endianness,
@@ -85,7 +85,7 @@ class TestErrors:
             codec.decode(enc[:-1])
 
     def test_decode_missing_clear(self, backend):
-        from lzw_tpu.ops import reference as oracle
+        from lzw_jax.ops import reference as oracle
 
         codes = [(0, 9)]
         width = 9
@@ -132,7 +132,7 @@ class TestBackendDispatch:
         assert auto.decode(lorem_ipsum_encoded) == lorem_ipsum
 
     def test_native_backend_explicit(self):
-        from lzw_tpu.native.runtime import native_available
+        from lzw_jax.native.runtime import native_available
 
         if not native_available():
             pytest.skip("native runtime unavailable")

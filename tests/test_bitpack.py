@@ -4,8 +4,8 @@ plus differential tests of the vectorized packers against the scalar oracle."""
 import numpy as np
 import pytest
 
-from lzw_tpu.ops import bitpack, reference as oracle
-from lzw_tpu.spec import Endianness
+from lzw_jax.ops import bitpack, reference as oracle
+from lzw_jax.spec import Endianness
 
 LE, BE = Endianness.LITTLE, Endianness.BIG
 

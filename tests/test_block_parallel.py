@@ -5,9 +5,9 @@ import pytest
 
 import jax
 
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.parallel import BlockParallelCodec, framing
-from lzw_tpu.spec import Endianness, LzwSpec, UnexpectedCodeError
+from lzw_jax.ops import reference as oracle
+from lzw_jax.parallel import BlockParallelCodec, framing
+from lzw_jax.spec import Endianness, LzwSpec, UnexpectedCodeError
 
 
 GIF7 = LzwSpec.gif(7)
@@ -146,7 +146,7 @@ def test_determinism_across_backends(tokyo_pixels):
     data = tokyo_pixels[:30000]
     codec = BlockParallelCodec(GIF7, block_size=4096)
     assert codec.encode(data) == codec.encode(data)
-    from lzw_tpu.ops import reference as oracle_mod
+    from lzw_jax.ops import reference as oracle_mod
 
     _, payloads = framing.parse_frame(codec.encode(data))
     for i, p in enumerate(payloads):

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lzw_tpu.ops import decode, reference as oracle
-from lzw_tpu.spec import CodeSizeStrategy, Endianness, LzwSpec
+from lzw_jax.ops import decode, reference as oracle
+from lzw_jax.spec import CodeSizeStrategy, Endianness, LzwSpec
 
 GIF2 = LzwSpec.gif(2)
 GIF7 = LzwSpec.gif(7)
@@ -130,7 +130,7 @@ class TestErrors:
     def test_missing_clear_matches_oracle(self):
         # The same synthetic stream must raise MissingClearCodeError in the
         # oracle, pinning both implementations to `decoder.rs:281-283`.
-        from lzw_tpu.spec import MissingClearCodeError
+        from lzw_jax.spec import MissingClearCodeError
 
         codes = [(0, 9)]
         width = 9

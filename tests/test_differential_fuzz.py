@@ -2,9 +2,10 @@
 
 The reference's differential oracle is its exploration crate asserting six
 encoder designs produce identical code streams (`exploration/src/lib.rs:
-539-607`).  Here all four implementations of this framework — scalar oracle,
-XLA codecs, Pallas kernels (interpret mode) and the native C++ runtime — are
-driven over randomized inputs and must agree byte-for-byte, flavor by flavor.
+539-607`).  Here all four implementations of this framework — scalar
+oracle, XLA codecs, the GPU block kernels (Pallas interpreter) and the
+native C++ runtime — are driven over randomized inputs and must agree
+byte-for-byte, flavor by flavor.
 
 Runtime-bounded: sizes and trial counts are chosen to keep the whole module
 under ~1 minute on CI hardware.
@@ -15,11 +16,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from lzw_tpu.api import LzwCodec
-from lzw_tpu.kernels import encode_pallas, schedule
-from lzw_tpu.native.runtime import get_runtime, native_available
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.spec import CodeSizeStrategy, Endianness, LzwSpec
+from lzw_jax.api import LzwCodec
+from lzw_jax.kernels import decode_triton, encode_triton
+from lzw_jax.native.runtime import get_runtime, native_available
+from lzw_jax.ops import reference as oracle
+from lzw_jax.spec import CodeSizeStrategy, Endianness, LzwSpec
 
 SPECS = [
     LzwSpec.gif(3),
@@ -71,33 +72,31 @@ def test_all_backends_agree(spec):
 @pytest.mark.parametrize("spec", [LzwSpec.gif(3), LzwSpec.fixed(Endianness.BIG)],
                          ids=["gif3", "fixed_be"])
 def test_pallas_kernel_agrees(spec):
+    # The GPU block kernels, in the Pallas interpreter: encode equals the
+    # oracle's stream, decode gives back the input.
     rng = np.random.default_rng(0xF00D)
-    datas = _gen_inputs(spec, rng, n_cases=5)
-    datas = [d[:128] for d in datas]
-    N = 128
-    mat = np.zeros((N, 128), np.uint8)
-    lens = np.zeros(N, np.int32)
+    datas = [d[:128] for d in _gen_inputs(spec, rng, n_cases=5)]
+    mat = np.zeros((len(datas), 128), np.uint8)
+    lens = np.zeros(len(datas), np.int32)
     for i, d in enumerate(datas):
         mat[i, : len(d)] = np.frombuffer(d, np.uint8)
         lens[i] = len(d)
-    if spec.variable:
-        dense, counts, errs, _ = encode_pallas.encode_blocks_variable_codes_tpu(
-            jnp.asarray(mat), jnp.asarray(lens), spec, 128,
-            interpret=True, group=128, cell=64, seg=64,
-        )
-        assert not np.asarray(errs)[: len(datas)].any()
-        payloads, lengths = schedule.pack_variable(
-            np.asarray(dense)[: len(datas)], np.asarray(counts)[: len(datas)],
-            spec, fix_eoi=False,
-        )
-    else:
-        payloads, lengths = encode_pallas.encode_blocks_fixed_tpu(
-            jnp.asarray(mat), jnp.asarray(lens), 128,
-            little=spec.endianness is Endianness.LITTLE,
-            interpret=True, group=128, cell=64, seg=64,
-        )
-        payloads, lengths = np.asarray(payloads), np.asarray(lengths)
+    payloads, lengths, errs, _ = encode_triton.encode_blocks(
+        jnp.asarray(mat), jnp.asarray(lens), spec, fix_eoi=False, lanes=4,
+        interpret=True,
+    )
+    assert not np.asarray(errs).any()
+    payloads, lengths = np.asarray(payloads), np.asarray(lengths)
     for i, d in enumerate(datas):
         assert payloads[i, : lengths[i]].tobytes() == oracle.encode_bytes(
             d, spec
         ), f"case {i}"
+    out, totals, errs, _ = decode_triton.decode_blocks(
+        jnp.asarray(payloads), jnp.asarray(lengths), spec, out_bound=128,
+        lanes=4, interpret=True,
+    )
+    out, totals = np.asarray(out), np.asarray(totals)
+    for i, d in enumerate(datas):
+        if not oracle.eoi_width_quirk(oracle.encode_codes(d, spec), spec):
+            assert int(np.asarray(errs)[i]) == 0
+            assert out[i, : totals[i]].tobytes() == d, f"case {i}"

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from lzw_tpu.ops import bitpack, encode, reference as oracle
-from lzw_tpu.spec import CodeSizeStrategy, Endianness, LzwSpec
+from lzw_jax.ops import bitpack, encode, reference as oracle
+from lzw_jax.spec import CodeSizeStrategy, Endianness, LzwSpec
 
 GIF2 = LzwSpec.gif(2)
 GIF7 = LzwSpec.gif(7)

@@ -13,9 +13,9 @@ import io
 import numpy as np
 import pytest
 
-from lzw_tpu.api import LzwCodec
-from lzw_tpu.native.runtime import get_runtime, native_available
-from lzw_tpu.spec import (
+from lzw_jax.api import LzwCodec
+from lzw_jax.native.runtime import get_runtime, native_available
+from lzw_jax.spec import (
     DecodingError,
     Endianness,
     LzwSpec,

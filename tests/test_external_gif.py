@@ -21,8 +21,8 @@ import pytest
 
 from PIL import Image
 
-from lzw_tpu.api import GifCodec
-from lzw_tpu.utils.gifwrap import wrap_gif, unwrap_gif as _unwrap_gif
+from lzw_jax.api import GifCodec
+from lzw_jax.utils.gifwrap import wrap_gif, unwrap_gif as _unwrap_gif
 
 BACKENDS = ["oracle", "jax", "native"]
 

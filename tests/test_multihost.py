@@ -6,7 +6,7 @@ component:
 * single-process invariants (always run), and
 * **real multi-process round-trips**: 2-3 CPU processes under
   ``jax.distributed`` exchanging payloads with ``process_allgather`` over
-  localhost gRPC — the same code path a TPU pod's DCN legs take.  Covers
+  localhost gRPC — the same code path a multi-host cluster's legs take.  Covers
   uneven block counts (idle processes), host-sharded encode, and container
   byte-identity across processes.
 """
@@ -22,8 +22,8 @@ import pytest
 
 import jax
 
-from lzw_tpu.parallel.multihost import MultiHostBlockCodec, _process_slice
-from lzw_tpu.spec import Endianness, LzwSpec
+from lzw_jax.parallel.multihost import MultiHostBlockCodec, _process_slice
+from lzw_jax.spec import Endianness, LzwSpec
 
 WORKER = pathlib.Path(__file__).resolve().parent / "multihost_worker.py"
 

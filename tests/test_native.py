@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lzw_tpu.native.runtime import get_runtime, native_available
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.spec import (
+from lzw_jax.native.runtime import get_runtime, native_available
+from lzw_jax.ops import reference as oracle
+from lzw_jax.spec import (
     CodeSizeStrategy,
     Endianness,
     LzwSpec,

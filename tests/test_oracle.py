@@ -11,8 +11,8 @@ oracle is pinned to the exact wire formats:
 
 import pytest
 
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.spec import (
+from lzw_jax.ops import reference as oracle
+from lzw_jax.spec import (
     CodeSizeError,
     CodeSizeStrategy,
     Endianness,

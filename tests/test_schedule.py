@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lzw_tpu.kernels import schedule
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.spec import CodeSizeStrategy, Endianness, LzwSpec
+from lzw_jax.kernels import schedule
+from lzw_jax.ops import reference as oracle
+from lzw_jax.spec import CodeSizeStrategy, Endianness, LzwSpec
 
 SPECS = [
     LzwSpec.gif(2), LzwSpec.gif(7), LzwSpec.tiff(),

@@ -16,9 +16,9 @@ import io
 import numpy as np
 import pytest
 
-from lzw_tpu.api import FixedCodec, GifCodec, TiffCodec
-from lzw_tpu.parallel.block import BlockParallelCodec
-from lzw_tpu.spec import (
+from lzw_jax.api import FixedCodec, GifCodec, TiffCodec
+from lzw_jax.parallel.block import BlockParallelCodec
+from lzw_jax.spec import (
     Endianness,
     LzwSpec,
     TruncatedStreamError,
@@ -91,7 +91,7 @@ def test_stream_corrupt_raises_unexpected_code():
 
 def test_decoder_stream_bounded_output():
     """Tiny out_cap forces the save/restore re-feed path repeatedly."""
-    from lzw_tpu.native.runtime import get_runtime
+    from lzw_jax.native.runtime import get_runtime
 
     data = (b"abcd" * 3000)[:9999]  # highly compressible -> big expansion
     spec = LzwSpec.gif(7)
@@ -175,13 +175,13 @@ def test_container_stream_wire_equivalent_spec(lorem_ipsum):
 
 
 def test_container_wire_equivalent_batch(lorem_ipsum):
-    """Same for the batch container (VERDICT r1 weak #6)."""
+    """Same for the batch container."""
     fixed_a = BlockParallelCodec(LzwSpec.fixed(Endianness.LITTLE),
                                  block_size=4096)
     container = fixed_a.encode(lorem_ipsum)
     # Construct an equal wire format through the raw constructor with a
     # different (irrelevant for fixed) strategy field.
-    from lzw_tpu.spec import CodeSizeStrategy
+    from lzw_jax.spec import CodeSizeStrategy
 
     odd_spec = LzwSpec(8, Endianness.LITTLE, CodeSizeStrategy.TIFF, False)
     fixed_b = BlockParallelCodec(odd_spec, block_size=4096)

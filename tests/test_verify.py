@@ -10,10 +10,10 @@ reference's always-asserted determinism posture).
 import numpy as np
 import pytest
 
-from lzw_tpu.ops import reference as oracle
-from lzw_tpu.parallel.block import BlockParallelCodec
+from lzw_jax.ops import reference as oracle
+from lzw_jax.parallel.block import BlockParallelCodec
 
-from lzw_tpu.spec import LzwSpec, VerificationError
+from lzw_jax.spec import LzwSpec, VerificationError
 
 
 def _codec(**kw):
